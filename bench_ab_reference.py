@@ -1,4 +1,4 @@
-"""Head-to-head fidelity A/B: our TPU encoder vs the reference greedy encoder.
+"""Head-to-head fidelity A/B: our device encoder vs the reference greedy encoder.
 
 Runs the ACTUAL reference encoder (/root/reference/transcoder/video.py:95-251
 + screen.py:343-547, numpy+heapq) against this repo's encoder on the same
@@ -518,7 +518,7 @@ def main(argv=None):
         f.write("|---|---|---|---|\n")
         f.write("| reference greedy (numpy+heapq) | %.4f | %.4f | %.1fs |\n"
                 % (rep_ref.mean_error, rep_ref.final_error, ref_s))
-        f.write("| ours (TPU scan, k=%d, j=%d) | %.4f | %.4f | %.1fs |\n"
+        f.write("| ours (device scan, k=%d, j=%d) | %.4f | %.4f | %.1fs |\n"
                 % (args.k, args.j, rep_ours.mean_error,
                    rep_ours.final_error, ours_s))
         f.write("\nfidelity ratio (ref/ours mean error, >1 = ours better):"

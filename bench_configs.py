@@ -1,7 +1,8 @@
 """Full benchmark suite: the five BASELINE.json configs + a K quality sweep.
 
-Runs on real TPU; prints one JSON line per config to stdout (bench.py remains
-the single-headline driver benchmark).
+Runs in one process on an NVIDIA GPU and prints one JSON line per config
+to stdout, each naming the device (bench.py remains the single-headline
+benchmark).  With no GPU, or when any stage raises, it exits non-zero.
 
 Configs (from /root/repo/BASELINE.json):
   1. HGR NTSC, 10s clip, video-only (silent stream)
@@ -14,20 +15,22 @@ Configs (from /root/repo/BASELINE.json):
 import json
 import os
 import sys
+import tempfile
 import time
 
 os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")  # see bench.py
 
 import numpy as np
 
-from bench import synth_clip
+from bench import require_gpu, synth_clip
 
 BASELINE_REALTIME_X = 0.2
-# any >1min in-process compile permanently degrades this process's
-# per-dispatch latency (see CLAUDE.md), tainting every row measured after
-# it - so like bench.py, all compiles happen in a --warm-only child first
-# and the measuring parent only pays fast service-cache loads
-MEASURE = "--warm-only" not in sys.argv
+DEVICE = {}  # filled by main(): the device record of every line
+WORK = None  # main()'s scratch directory for streams and inputs
+
+
+def emit(rec):
+    print(json.dumps({**rec, "device": DEVICE}), flush=True)
 
 
 def log(*a):
@@ -42,7 +45,7 @@ def tone(seconds, bitrate):
 
 def run_config(name, mode, palette, bitrate, silent, dists, k=16,
                seconds=10.0, colour_model="window", replay_bases=None):
-    """One Movie config: warm-child compile, measured transcode, VM
+    """One Movie config: warm-up compile, measured transcode, VM
     validation, replay scoring.
 
     colour_model selects the distance basis the ENCODER optimises;
@@ -85,23 +88,16 @@ def run_config(name, mode, palette, bitrate, silent, dists, k=16,
             flat, m.plan, lanes_tgt, mode, d)
             for sfx, d in replay_bases.items()}
 
+    path = os.path.join(WORK, "cfg.a2m")
     m = build()
-    m.transcode("/tmp/bench_cfg_warm.a2m")  # compile
-    if not MEASURE:
-        # also compile the replay-metric programs the measuring parent
-        # will run (encode_ops reuses the already-computed plan/ops)
-        flat, _ = m.encode_ops()
-        lanes_tgt, _ = encoder.prepare_targets(
-            m.frames.targets_main, m.frames.targets_aux, mode)
-        replay(m, flat, lanes_tgt)
-        return None
+    m.transcode(path)  # compile
     t0 = time.time()
     m = build()
-    stats = m.transcode("/tmp/bench_cfg.a2m")
+    stats = m.transcode(path)
     wall = time.time() - t0
     rt = stats["movie_seconds"] / wall
 
-    data = open("/tmp/bench_cfg.a2m", "rb").read()
+    data = open(path, "rb").read()
     res = PlayerVM().decode(data)
     assert res.ok, (name, res.error, res.error_pos)
     assert res.n_ops == stats["n_ops"]
@@ -122,7 +118,7 @@ def run_config(name, mode, palette, bitrate, silent, dists, k=16,
     for sfx, rep in reps.items():
         out["mean_error" + sfx] = round(rep.mean_error, 2)
         out["final_error" + sfx] = round(rep.final_error, 2)
-    print(json.dumps(out), flush=True)
+    emit(out)
     return out
 
 
@@ -141,43 +137,27 @@ def run_yiq_config(dists):
 
 
 def cli_batch_soak(n_inputs=16):
-    """Production entry point at realistic scale: 16 mixed-length real
-    .mp4 inputs (cv2-encoded) -> one CLI batch invocation with per-movie
-    --stats_json -> every output validated by the player VM."""
+    """Production entry point at realistic scale: 16 mixed-length .npz
+    frame files -> one CLI batch invocation with per-movie --stats_json ->
+    every output validated by the player VM."""
     import glob
-    import shutil
 
     from iivision_tpu import cli
     from iivision_tpu.sim import PlayerVM
 
-    try:
-        import cv2
-    except Exception:
-        print(json.dumps({"config": "cli_batch16",
-                          "error": "cv2 unavailable"}), flush=True)
-        return
-    workdir = "/tmp/bench_cli_batch"
-    paths = [os.path.join(workdir, "in_%02d.mp4" % i)
+    workdir = os.path.join(WORK, "cli_batch")
+    os.makedirs(workdir)
+    paths = [os.path.join(workdir, "in_%02d.npz" % i)
              for i in range(n_inputs)]
-    if not all(os.path.exists(p) for p in paths):
-        shutil.rmtree(workdir, ignore_errors=True)
-        os.makedirs(workdir)
-        rng = np.random.RandomState(0)
-        base = synth_clip(seconds=10.0)
-        for i, path in enumerate(paths):
-            # mixed lengths 4..10s, distinct content per movie
-            f = int((4.0 + 6.0 * (i / max(n_inputs - 1, 1))) * 30)
-            wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
-                                 30.0, (280, 192))
-            roll = int(rng.randint(0, 280))
-            for t in range(f):
-                frame = np.roll(base[t % len(base)], roll + 3 * t, axis=1)
-                wr.write(frame[:, :, ::-1])  # BGR
-            wr.release()
-    for old in glob.glob(os.path.join(workdir, "*.a2m")):
-        os.remove(old)
-    for cache in glob.glob(os.path.join(workdir, "*.iiv_*.npz")):
-        os.remove(cache)  # measure real decode+quantize, not the cache
+    rng = np.random.RandomState(0)
+    base = synth_clip(seconds=10.0)
+    for i, path in enumerate(paths):
+        # mixed lengths 4..10s, distinct content per movie
+        f = int((4.0 + 6.0 * (i / max(n_inputs - 1, 1))) * 30)
+        roll = int(rng.randint(0, 280))
+        frames = np.stack([np.roll(base[t % len(base)], roll + 3 * t,
+                                   axis=1) for t in range(f)])
+        np.savez(path, frames=frames, frame_rate=30.0)
     t0 = time.time()
     cli.main(paths + ["--output", workdir, "--video_mode", "DHGR",
                       "--palette", "NTSC", "--k", "16", "--j", "4",
@@ -196,16 +176,15 @@ def cli_batch_soak(n_inputs=16):
     if os.path.exists(stats_path):
         with open(stats_path) as f:
             n_stats = len(json.load(f))
-    if MEASURE:
-        print(json.dumps({
-            "config": "cli_batch16",
-            "n_inputs": n_inputs,
-            "movie_seconds_total": round(total_secs, 1),
-            "wall_s": round(wall, 2),
-            "batch_realtime_x": round(total_secs / wall, 2),
-            "per_movie_stats": n_stats,
-            "all_vm_valid": True,
-        }), flush=True)
+    emit({
+        "config": "cli_batch16",
+        "n_inputs": n_inputs,
+        "movie_seconds_total": round(total_secs, 1),
+        "wall_s": round(wall, 2),
+        "batch_realtime_x": round(total_secs / wall, 2),
+        "per_movie_stats": n_stats,
+        "all_vm_valid": True,
+    })
 
 
 def k_sweep(dists):
@@ -222,14 +201,7 @@ def k_sweep(dists):
                   every_n_video_frames=2, video_mode=VideoMode.DHGR,
                   palette=Palette.NTSC, k=k, j=j,
                   dist=dists[(VideoMode.DHGR, Palette.NTSC)])
-        flat, _ = m.encode_ops()
-        if not MEASURE:
-            lanes_tgt, _ = encoder.prepare_targets(
-                m.frames.targets_main, m.frames.targets_aux,
-                VideoMode.DHGR)
-            quality.replay_frame_errors(flat, m.plan, lanes_tgt,
-                                        VideoMode.DHGR, m.dist)
-            continue
+        m.encode_ops()  # compile
         t0 = time.time()
         m2 = Movie(frames_source=rgb, audio_source=aud,
                    every_n_video_frames=2, video_mode=VideoMode.DHGR,
@@ -241,29 +213,21 @@ def k_sweep(dists):
             m2.frames.targets_main, m2.frames.targets_aux, VideoMode.DHGR)
         rep = quality.replay_frame_errors(flat, m2.plan, lanes_tgt,
                                           VideoMode.DHGR, m2.dist)
-        print(json.dumps({
+        emit({
             "config": "k_sweep", "k": k, "j": j,
             "encode_realtime_x": round(5.0 / enc_wall, 2),
             "mean_error": round(rep.mean_error, 2),
             "final_error": round(rep.final_error, 2),
-        }), flush=True)
+        })
 
 
 def main():
-    if MEASURE and not os.environ.get("IIVISION_BENCH_NO_CHILD"):
-        import subprocess
-        log("pre-warming the compile service in a child process...")
-        t0 = time.time()
-        r = subprocess.run(
-            [sys.executable, __file__, "--warm-only"],
-            env={**os.environ, "IIVISION_BENCH_NO_CHILD": "1"},
-            stdout=subprocess.DEVNULL, timeout=5400)
-        log("pre-warm child: %.0fs (rc=%d)" % (time.time() - t0,
-                                               r.returncode))
+    global WORK
+    DEVICE.update(require_gpu())
+    WORK = tempfile.mkdtemp(prefix="iivision_bench_configs_")
 
     import jax
 
-    from bench import log_env_health
     from iivision_tpu.movie import get_distance
     from iivision_tpu.ops import editdist
     from iivision_tpu.palettes import Palette
@@ -273,9 +237,7 @@ def main():
     import jax.numpy as jnp
     from iivision_tpu import audio as audio_mod, encoder
 
-    log("backend:", jax.default_backend(), jax.devices())
-    if MEASURE:
-        log_env_health(log)
+    log("device:", DEVICE)
     dists = {}
     for mode, pal in [(VideoMode.HGR, Palette.NTSC),
                       (VideoMode.DHGR, Palette.NTSC),
@@ -312,12 +274,12 @@ def main():
     tables_hgr.block_until_ready()
     t_tables_hgr = time.time() - t0
     del tables_hgr
-    print(json.dumps({
+    emit({
         "config": "hgr_tablegen",
         "tablegen_s": round(t_tables_hgr, 1),
         "raw_bytes": 2 * (1 << 28),
         "tablegen_vs_baseline_min": round(90 * 60 / t_tables_hgr, 1),
-    }), flush=True)
+    })
 
     rgb = synth_clip(seconds=10.0)
     aud = audio_mod.Audio(data=tone(10.0, 14700), rate=14700, bitrate=14700)
@@ -336,22 +298,21 @@ def main():
     r = pmesh.encode_movies_batch(d, lanes_b, bytes_b, m.plan,
                                   VideoMode.DHGR, np.arange(B))
     jax.tree.map(lambda x: x.block_until_ready(), r)  # compile
-    if MEASURE:
-        t0 = time.time()
-        ops_b, _, _ = pmesh.encode_movies_batch(d, lanes_b, bytes_b,
-                                                m.plan, VideoMode.DHGR,
-                                                np.arange(1, B + 1))
-        ops_np = pmesh.fetch_ops(ops_b, m.plan)
-        streams = [emit_stream_fast(encoder.flatten_ops(ops_np[i], m.plan),
-                                    levels, VideoMode.DHGR)
-                   for i in range(B)]
-        wall = time.time() - t0
-        print(json.dumps({
-            "config": "batch10_plus_tablegen",
-            "batch_realtime_x": round(B * 10.0 / wall, 2),
-            "tablegen_s": round(t_tables, 1),
-            "tablegen_vs_baseline_min": round(90 * 60 / t_tables, 1),
-        }), flush=True)
+    t0 = time.time()
+    ops_b, _, _ = pmesh.encode_movies_batch(d, lanes_b, bytes_b,
+                                            m.plan, VideoMode.DHGR,
+                                            np.arange(1, B + 1))
+    ops_np = pmesh.fetch_ops(ops_b, m.plan)
+    streams = [emit_stream_fast(encoder.flatten_ops(ops_np[i], m.plan),
+                                levels, VideoMode.DHGR)
+               for i in range(B)]
+    wall = time.time() - t0
+    emit({
+        "config": "batch10_plus_tablegen",
+        "batch_realtime_x": round(B * 10.0 / wall, 2),
+        "tablegen_s": round(t_tables, 1),
+        "tablegen_vs_baseline_min": round(90 * 60 / t_tables, 1),
+    })
 
     # HGR batched transcode at scale (same B=10 shape as the DHGR row)
     mh = Movie(frames_source=rgb, audio_source=aud, every_n_video_frames=2,
@@ -367,27 +328,24 @@ def main():
                                   VideoMode.HGR, np.arange(B))
     jax.tree.map(lambda x: x.block_until_ready(), r)  # compile
     levels_h = np.asarray(mh.audio.levels())[:mh.plan.n_ops]
-    if MEASURE:
-        t0 = time.time()
-        ops_b, _, _ = pmesh.encode_movies_batch(dh, lanes_hb, bytes_hb,
-                                                mh.plan, VideoMode.HGR,
-                                                np.arange(1, B + 1))
-        ops_np = pmesh.fetch_ops(ops_b, mh.plan)
-        streams = [emit_stream_fast(encoder.flatten_ops(ops_np[i], mh.plan),
-                                    levels_h, VideoMode.HGR)
-                   for i in range(B)]
-        wall = time.time() - t0
-        from iivision_tpu.sim import PlayerVM
-        res_h = PlayerVM().decode(streams[-1])
-        assert res_h.ok, res_h.error
-        print(json.dumps({
-            "config": "hgr_batch10",
-            "batch_realtime_x": round(B * 10.0 / wall, 2),
-        }), flush=True)
+    t0 = time.time()
+    ops_b, _, _ = pmesh.encode_movies_batch(dh, lanes_hb, bytes_hb,
+                                            mh.plan, VideoMode.HGR,
+                                            np.arange(1, B + 1))
+    ops_np = pmesh.fetch_ops(ops_b, mh.plan)
+    streams = [emit_stream_fast(encoder.flatten_ops(ops_np[i], mh.plan),
+                                levels_h, VideoMode.HGR)
+               for i in range(B)]
+    wall = time.time() - t0
+    from iivision_tpu.sim import PlayerVM
+    res_h = PlayerVM().decode(streams[-1])
+    assert res_h.ok, res_h.error
+    emit({
+        "config": "hgr_batch10",
+        "batch_realtime_x": round(B * 10.0 / wall, 2),
+    })
 
     k_sweep(dists)
-    if not MEASURE:
-        log("warm-only child done (all programs compiled/service-cached)")
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ Times the B=32 DHGR encode with pieces of the chunk-start recompute ablated
   nodp,noslab     recompute reduced to bookkeeping - the scan's floor
 
 Ablated programs produce WRONG streams; this script is timing-only.
-Appends one JSON line per variant to RECOMPUTE_DIAG.jsonl.
+Prints one JSON line per variant.
 """
 
 import json
@@ -67,9 +67,6 @@ def main():
         fn = jax.jit(jax.vmap(
             scan, in_axes=(None, None, 0, 0, None, None, None, None, 0)))
         def timed(keys):
-            # FETCH a digest: on this backend block_until_ready can
-            # return before a service-cached program actually ran
-            # (measured: ablation variants "timed" 0.1ms without this)
             t0 = time.time()
             ops, _, _ = fn(store_cost, sub, lanes_b, bytes_b,
                            sfj, sbj, srj, snj, keys)
@@ -81,15 +78,13 @@ def main():
         best = 1e9
         for rep in range(REPS):
             keys = jax.vmap(jax.random.PRNGKey)(
-                jnp.arange(B) + 1000 * (rep + 1))  # distinct: no dedup
+                jnp.arange(B) + 1000 * (rep + 1))
             best = min(best, timed(keys))
         results[variant] = best
         rec = {"variant": variant, "best_s": round(best, 4),
                "compile_s": round(compile_s, 1), "B": B,
                "k": plan.k, "j": plan.j, "ts": time.time()}
-        log(json.dumps(rec))
-        with open("RECOMPUTE_DIAG.jsonl", "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        print(json.dumps(rec), flush=True)
 
     full = results.get("full")
     if full:

@@ -8,7 +8,7 @@ Parity with reference transcoder/audio.py:10-100:
 - levels are int(sample * 16) truncated toward zero and clipped to -15..16,
   each level driving one 73-cycle speaker duty-cycle opcode.
 
-TPU-native: the resample is an FFT method (the reference uses
+On device: the resample is an FFT method (the reference uses
 librosa res_type='scipy' == scipy.signal.resample, also FFT) implemented in
 jax.numpy so it runs on-device; decode is scipy WAV or ffmpeg when present
 (the reference needs ffmpeg via audioread just the same).

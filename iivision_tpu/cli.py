@@ -16,7 +16,7 @@ from iivision_tpu.video_mode import VideoMode
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="Transcode videos to ][-Vision format (TPU-native).")
+        description="Transcode videos to ][-Vision format.")
     parser.add_argument("input", nargs="+",
                         help="Input video file(s), or reference bmp2dhr "
                              "frame-cache directories "
@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["ordered", "buckels", "floyd", "atkinson",
                                  "jarvis", "mono"],
                         help="Frame quantization dither (ordered = batched "
-                             "TPU path; others = native error diffusion; "
+                             "device path; others = native error diffusion; "
                              "mono = 1-bit 560-dot Bayer, auto-selected by "
                              "--colour_model mono).  Default: ordered.")
     parser.add_argument("--k", type=int, default=8,

@@ -8,7 +8,7 @@ both scalar and fully vectorised (numpy / JAX) implementations of that model.
 Behavioural parity with reference transcoder/colours.py:18-148 (colour enums,
 rol/ror, dots_to_nominal_colour_pixels).  The vectorised forms are new: they
 map *arrays* of dot-streams to pixel-value arrays in one shot, which is what
-the TPU table-generation path consumes (see ops/editdist.py).
+the device table-generation path consumes (see ops/editdist.py).
 """
 
 import enum

@@ -1,4 +1,4 @@
-"""Host (numpy) oracle for the TPU encoder scan.
+"""Host (numpy) oracle for the device encoder scan.
 
 Implements exactly the algorithm of encoder.py's `lax.scan` step, scalar and
 readable, for differential testing: with zero nonces the two must emit
@@ -19,7 +19,7 @@ from iivision_tpu.video_mode import VideoMode
 
 
 class HostEncoder:
-    """Scalar mirror of the TPU encode scan."""
+    """Scalar mirror of the device encode scan."""
 
     def __init__(self, mode: VideoMode, dist, k: int = 8,
                  seed: Optional[int] = None, j: int = 1,

@@ -1,6 +1,6 @@
 """Reference-order greedy parity mode (host, K=1).
 
-The TPU encoder deliberately diverges from the reference's heap-driven
+The device encoder deliberately diverges from the reference's heap-driven
 greedy loop (documented in encoder.py:45-58): live-array priorities, a
 real 4th companion, seeded tie-breaks.  This module closes the one SURVEY
 contract with no artifact - "K=1 reproduces the greedy semantics for the

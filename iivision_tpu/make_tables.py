@@ -4,9 +4,10 @@ Two artifact families:
 
 1. `--what luts` - reference-compatible edit-distance LUT npz files, the
    equivalent of the reference's `make_data_tables.py` (~90 minutes on CPU,
-   reference README.md:61-67); here seconds per mode/palette on a TPU chip.
+   reference README.md:61-67); here one batched device program per
+   mode/palette.
    Drop-in replacements for the reference's transcoder/data/*.npz
-   (upper-triangle layout, symmetrised at load).  The TPU encoder itself
+   (upper-triangle layout, symmetrised at load).  The encoder itself
    does NOT need these - they exist for reference-toolchain interop.
 2. `--what store_cost` - the store-cost tables that ARE the encoder's
    distance model (ops/distance.py).  The common configs ship with the
@@ -45,8 +46,6 @@ def main(args=None):
     parser.add_argument("--models", nargs="+", default=["window"],
                         choices=["window", "yiq"],
                         help="Colour models for store-cost artifacts.")
-    parser.add_argument("--backend", default="auto",
-                        choices=["auto", "xla", "pallas"])
     a = parser.parse_args(args)
 
     if a.data_dir is None:
@@ -77,8 +76,7 @@ def main(args=None):
                           % (mode_name, pal_name, model, t_build, path))
             if "luts" in a.what:
                 t0 = time.time()
-                tables = editdist.build_tables(mode, pal,
-                                               backend=a.backend)
+                tables = editdist.build_tables(mode, pal)
                 tables.block_until_ready()
                 t_build = time.time() - t0
                 t0 = time.time()

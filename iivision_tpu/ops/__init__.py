@@ -1,2 +1,2 @@
-"""TPU compute kernels: edit-distance table generation, frame diffing,
+"""Device compute kernels: edit-distance table generation, frame diffing,
 quantization/dithering, audio resampling."""

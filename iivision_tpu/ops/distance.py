@@ -2,15 +2,16 @@
 
 The reference (and our ops/editdist.py artifact generator) materialises the
 full pairwise edit-distance LUT: 512MB-1GB of uint16 indexed by
-(src_lane << B) + tgt_lane.  Random gathers from tables that size run at
-~80M elements/s on TPU - they were the encoder's bottleneck.  This module
-computes the same distances directly:
+(src_lane << B) + tgt_lane.  Random gathers from tables that size are the
+slow access pattern on an accelerator.  This module computes the same
+distances directly:
 
 - `dist_pairs`: the diagonal Damerau-Levenshtein recurrence (see
   ops/editdist.py for the proof it equals the reference's metric) evaluated
   *elementwise* on arrays of lane-value pairs.  Substitution costs come from
-  a 16x16 CIE2000 matrix via one-hot contractions - pure VPU/MXU work, zero
-  gathers.  Used for the per-chunk diff recompute (current screen vs target).
+  a 16x16 CIE2000 matrix via one-hot contractions - dense vector and
+  matmul work, zero gathers.  Used for the per-chunk diff recompute
+  (current screen vs target).
 - `store_cost_table`: D(masked_update(t, c), t) for every (lane value t,
   content c) - only (n_lanes, 2^B, n_contents) f32 (4-32MB), computed once
   per (mode, palette) in milliseconds.  The encoder turns it into a
@@ -21,6 +22,7 @@ Equality with the LUT path is exact (same recurrence, integer values) and
 tested against the scalar oracle.
 """
 
+import contextlib
 import functools
 import os
 
@@ -39,13 +41,26 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
 
 
-def _tpu_backend() -> bool:
-    """True when jax traces/executes for a TPU backend (bf16 dots OK)."""
-    try:
-        import jax
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+# Name scope of the f32 dots that are exact at any matmul precision
+# (TF32, bf16) because their operands are small integers; every other f32
+# dot on the device path asks for HIGHEST (tests/test_precision.py).
+EXACT_INT_SCOPE = "exact_int_dot"
+
+
+def exact_int_scope(xp):
+    """jax.named_scope(EXACT_INT_SCOPE) for jnp arrays, a no-op for numpy."""
+    if xp is np:
+        return contextlib.nullcontext()
+    import jax
+    return jax.named_scope(EXACT_INT_SCOPE)
+
+
+def _einsum_highest(xp, spec, *operands):
+    """einsum at full f32 precision (numpy is always full precision)."""
+    if xp is np:
+        return np.einsum(spec, *operands)
+    import jax
+    return xp.einsum(spec, *operands, precision=jax.lax.Precision.HIGHEST)
 
 
 def lane_pixels(vals, mode: VideoMode, lane: int):
@@ -79,30 +94,13 @@ def dist_pixel_pairs(pa, pb, sub16):
     xp = screen._xp(pa)
     L = pa.shape[-1]
     eye = xp.arange(16, dtype=pa.dtype)
-    if xp is not np and _tpu_backend():
-        # TPU path: the one-hot contraction in bf16 with f32
-        # accumulation.  BIT-EXACT: one-hot entries are 0/1 and the
-        # CIEDE2000 substitution costs are integers <= ~110 (< 2^8, exact
-        # in bf16), so every product and the f32-accumulated sums are
-        # exact.  The (..., L, 16) one-hot operands are the diff
-        # recompute's dominant HBM traffic - bf16 halves it and the MXU
-        # runs these dots at full rate.  XLA:CPU cannot execute
-        # bf16xbf16->f32 dots (DotThunk), so this is trace-time gated to
-        # TPU; exactness vs the f32/CPU path is pinned by
-        # tests/test_distance.py's table-vs-artifact check run on TPU
-        # (tools/check_tpu_exactness.py) and the golden stream hash.
-        import jax.numpy as jnp
-
-        oa = (pa[..., None] == eye).astype(jnp.bfloat16)
-        ob = (pb[..., None] == eye).astype(jnp.bfloat16)
-        sub_all = xp.einsum("...ki,ij,...kj->...k", oa,
-                            sub16.astype(jnp.bfloat16), ob,
-                            preferred_element_type=jnp.float32)
-        sub16 = sub16.astype(jnp.float32)
-    else:
-        oa = (pa[..., None] == eye).astype(sub16.dtype)  # (..., L, 16)
-        ob = (pb[..., None] == eye).astype(sub16.dtype)
-        # sub_k = C[a_k, b_k] via one-hot contraction (no gathers)
+    oa = (pa[..., None] == eye).astype(sub16.dtype)  # (..., L, 16)
+    ob = (pb[..., None] == eye).astype(sub16.dtype)
+    # sub_k = C[a_k, b_k] via one-hot contraction (no gathers).  Exact at
+    # any matmul precision: the operands are 0/1 one-hots and integer
+    # costs <= 110 (< 2^8, exact in bf16 and TF32), and each sum has one
+    # nonzero term.  (bf16 operands measured no faster on an H100.)
+    with exact_int_scope(xp):
         sub_all = xp.einsum("...ki,ij,...kj->...k", oa, sub16, ob)
     # adjacent-transposition eligibility
     swap = (pa[..., 1:] == pb[..., :-1]) & (pa[..., :-1] == pb[..., 1:])
@@ -127,7 +125,8 @@ def dist_window_sums(wa, wb, subs):
     eye = xp.arange(128, dtype=wa.dtype)
     oa = (wa[..., None] == eye).astype(subs.dtype)
     ob = (wb[..., None] == eye).astype(subs.dtype)
-    d = xp.einsum("...ki,kij,...kj->...k", oa, subs, ob)
+    # fractional costs: HIGHEST, or TF32 would round them
+    d = _einsum_highest(xp, "...ki,kij,...kj->...k", oa, subs, ob)
     return d.sum(axis=-1)
 
 
@@ -143,7 +142,7 @@ def dist_window_sums_sub2(wa, wb, subs2):
     eye = xp.arange(128, dtype=wa.dtype)
     oa = (wa[..., None] == eye).astype(subs2.dtype)
     ob = (wb[..., None] == eye).astype(subs2.dtype)
-    d = xp.einsum("s...ki,skij,s...kj->s...k", oa, subs2, ob)
+    d = _einsum_highest(xp, "s...ki,skij,s...kj->s...k", oa, subs2, ob)
     return d.sum(axis=-1)
 
 
@@ -275,6 +274,13 @@ def save_store_cost(cost: np.ndarray, mode: VideoMode, palette: Palette,
 def _build_store_cost(mode: VideoMode, palette: Palette,
                       model: str = "window"):
     import jax
+
+    return jax.jit(store_cost_fn(mode, palette, model))()
+
+
+def store_cost_fn(mode: VideoMode, palette: Palette, model: str = "window"):
+    """The store-cost build as a traceable zero-argument function."""
+    import jax
     import jax.numpy as jnp
 
     spec = screen.spec_for_mode(mode)
@@ -285,7 +291,6 @@ def _build_store_cost(mode: VideoMode, palette: Palette,
     # per operand, where width is 16 (window model) or 128 (yiq)
     chunk = 32 if model == "yiq" else 256
 
-    @jax.jit
     def build():
         c = jnp.arange(C, dtype=jnp.int32)[None, :]  # (1, C)
         outs = []
@@ -305,7 +310,7 @@ def _build_store_cost(mode: VideoMode, palette: Palette,
             outs.append(rows.reshape(n, C))
         return jnp.stack(outs)
 
-    return build()
+    return build
 
 
 class ComputedDistance:

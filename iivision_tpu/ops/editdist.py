@@ -1,8 +1,8 @@
-"""Perceptual edit-distance table generation on TPU.
+"""Perceptual edit-distance table generation on the accelerator.
 
 This replaces the reference's ~90-minute offline step (reference transcoder/
 make_data_tables.py:111-204: 134M-268M Cython Damerau-Levenshtein DPs on CPU)
-with seconds of MXU work.
+with a few batched matmul programs.
 
 The mathematical reduction
 --------------------------
@@ -27,11 +27,9 @@ each step becomes three small matmuls against 16-wide one-hot encodings:
     swap_k = (onehot(A[:,k]) @ onehot(B[:,k-1]).T)
            * (onehot(A[:,k-1]) @ onehot(B[:,k]).T)          (0/1 eligibility)
 
-which is exactly the MXU's shape of work.  A Pallas kernel keeps the DP state
-for a tile in VMEM across all L steps so HBM traffic is the uint16 output
-only; a pure-XLA blocked path provides the same numerics everywhere (CPU
-tests, interpretability) and a scalar full-Damerau-Levenshtein oracle guards
-the diagonal reduction in tests.
+which is matmul-shaped work.  A blocked pure-XLA path runs it on every
+backend, and a scalar full-Damerau-Levenshtein oracle guards the diagonal
+reduction in tests.
 
 Table layout parity: reference stores an upper-triangle matrix encoded as
 dist[o][(i << MASKED_BITS) + j], j < i, and symmetrises at load time
@@ -152,9 +150,8 @@ def diagonal_dp_scalar(a, b, sub: np.ndarray) -> float:
 #
 #   s_k(i,j) = sa_k(i) * [pa_k(i) == pbswap_k(j)],   sa_k <= 0
 #
-# This turns the hot work from 3L K=16 matmuls (2-6% MXU K-utilization)
-# into one K=16L matmul + (L-1) K=256 matmuls, all exact in single-pass
-# bf16 (operands are 0/1 one-hots and integers <= 256).
+# This turns the hot work from 3L K=16 matmuls into one K=16L matmul +
+# (L-1) K=256 matmuls.
 
 
 def dp_distance_tile(a_codes, b_codes, sub_f32):
@@ -166,7 +163,21 @@ def dp_distance_tile(a_codes, b_codes, sub_f32):
       sub_f32: (16, 16) float32 substitution costs (symmetric).
     Returns:
       (M, N) float32 distances (exact integers).
+
+    Every dot here is exact at any matmul precision (TF32, bf16): its
+    operands are 0/1 one-hots and integers of magnitude <= 219 (CIE2000
+    costs <= 110 and clamped savings 2*cost - 1, all < 2^11), and it
+    accumulates in f32.
     """
+    import jax
+
+    from iivision_tpu.ops.distance import EXACT_INT_SCOPE
+
+    with jax.named_scope(EXACT_INT_SCOPE):
+        return _dp_distance_tile(a_codes, b_codes, sub_f32)
+
+
+def _dp_distance_tile(a_codes, b_codes, sub_f32):
     import jax.numpy as jnp
 
     L = a_codes.shape[-1]
@@ -210,168 +221,42 @@ def dp_distance_tile(a_codes, b_codes, sub_f32):
 
 
 def edit_distance_matrix_xla(mode: VideoMode, palette: Palette, lane: int,
-                             block: int = 2048):
-    """Full (N, N) uint16 distance matrix for one lane, blocked over rows."""
+                             block: int = 2048,
+                             n_rows: Optional[int] = None):
+    """(n_rows, N) uint16 distance matrix for one lane, blocked over rows
+    (n_rows=None: all N rows, the full matrix)."""
     import jax
     import jax.numpy as jnp
 
     codes = jnp.asarray(lane_pixel_codes(mode, lane).astype(np.int32))
     sub = jnp.asarray(substitute_matrix(palette).astype(np.float32))
-    n = codes.shape[0]
+    n = codes.shape[0] if n_rows is None else n_rows
 
     @jax.jit
     def block_fn(a_block):
         return dp_distance_tile(a_block, codes, sub).astype(jnp.uint16)
 
-    rows = [block_fn(codes[i:i + block]) for i in range(0, n, block)]
+    rows = [block_fn(codes[i:min(i + block, n)]) for i in range(0, n, block)]
     return jnp.concatenate(rows, axis=0)
-
-
-# --- Pallas fused kernel --------------------------------------------------------
-
-def _editdist_kernel_factory(L: int, tile_m: int, tile_n: int):
-    import jax
-    import jax.numpy as jnp
-
-    def kernel(a_ref, b_ref, sub_ref, out_ref):
-        # Per-step one-hot sandwich formulation.  (The base+savings
-        # reduction used by dp_distance_tile was also implemented here; it
-        # ran ~15% faster under XLA but its 256-wide one-hot tiles made
-        # Mosaic's compile time blow up past 30 minutes, so the kernel
-        # keeps the form that compiles and runs on chip.)
-        # One-hot encodings via 2D broadcasted iota (TPU disallows 1D iota).
-        iota_m = jax.lax.broadcasted_iota(jnp.int32, (tile_m, 16), 1)
-        iota_n = jax.lax.broadcasted_iota(jnp.int32, (16, tile_n), 0)
-
-        def onehot_rows(col):  # (tile_m,) -> (tile_m, 16)
-            return (col[:, None] == iota_m).astype(jnp.float32)
-
-        def onehot_cols(col):  # (tile_n,) -> (16, tile_n), pre-transposed
-            return (col[None, :] == iota_n).astype(jnp.float32)
-
-        sub = sub_ref[:]
-        big = jnp.float32(1e9)
-        oh_a = [onehot_rows(a_ref[:, k]) for k in range(L)]
-        oh_bt = [onehot_cols(b_ref[:, k]) for k in range(L)]
-        d_m2 = jnp.zeros((tile_m, tile_n), jnp.float32)
-        d_m1 = None
-        for k in range(L):
-            sub_k = jnp.dot(
-                jnp.dot(oh_a[k], sub, preferred_element_type=jnp.float32),
-                oh_bt[k], preferred_element_type=jnp.float32)
-            dk = (d_m1 if d_m1 is not None else 0.0) + sub_k
-            if k >= 1:
-                swap = (
-                    jnp.dot(oh_a[k], oh_bt[k - 1],
-                            preferred_element_type=jnp.float32)
-                    * jnp.dot(oh_a[k - 1], oh_bt[k],
-                              preferred_element_type=jnp.float32))
-                dk = jnp.minimum(dk, d_m2 + TRANSPOSE_COST
-                                 + (1.0 - swap) * big)
-            d_m2 = d_m1 if d_m1 is not None else d_m2
-            d_m1 = dk
-        # Mosaic has no f32->u16 cast; go through int32 (exact: values < 2^16)
-        out_ref[:] = d_m1.astype(jnp.int32)
-
-    return kernel
-
-
-def pallas_distance(codes_a, codes_b, sub, tile_m: int, tile_n: int,
-                    interpret: bool = False):
-    """(n_a, n_b) uint16 pair-distance matrix via the fused Pallas kernel.
-
-    codes_a/codes_b: (n, L) int32 pixel-code strings; sub: (16, 16) f32
-    CIE2000 substitution costs.  tile_m|n must divide n_a|n_b.
-    interpret=True runs the kernel in Pallas interpret mode (CPU-testable).
-    """
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import jax.numpy as jnp
-
-    n_a, L = codes_a.shape
-    n_b = codes_b.shape[0]
-    kernel = _editdist_kernel_factory(L, tile_m, tile_n)
-    call = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n_a, n_b), jnp.int32),
-        grid=(n_a // tile_m, n_b // tile_n),
-        in_specs=[
-            pl.BlockSpec((tile_m, L), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_n, L), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((16, 16), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_m, tile_n), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )
-
-    @jax.jit
-    def run(a, b, s):
-        return call(a, b, s).astype(jnp.uint16)
-
-    return run(codes_a, codes_b, sub)
-
-
-def edit_distance_matrix_pallas(mode: VideoMode, palette: Palette, lane: int,
-                                tile_m: Optional[int] = None,
-                                tile_n: Optional[int] = None):
-    """Full (N, N) uint16 distance matrix via a fused Pallas kernel.
-
-    The DP state for a (tile_m, tile_n) tile of pairs lives in VMEM across
-    all L recurrence steps; HBM traffic is the uint16 output tile plus the
-    tiny code/cost inputs.  Grid = (N/tile_m, N/tile_n).
-    """
-    import jax.numpy as jnp
-
-    codes_np = lane_pixel_codes(mode, lane).astype(np.int32)
-    n, L = codes_np.shape
-    codes = jnp.asarray(codes_np)
-    sub = jnp.asarray(substitute_matrix(palette).astype(np.float32))
-
-    # VMEM budget: per-tile intermediates are (tile_m, tile_n) f32; longer
-    # strings (HGR L=18) keep more of them live in the unrolled DP.
-    if tile_m is None:
-        tile_m = 256
-    if tile_n is None:
-        tile_n = 1024 if L <= 12 else 512
-
-    return pallas_distance(codes, codes, sub, tile_m, tile_n)
 
 
 # --- public API -----------------------------------------------------------------
 
 def build_tables(mode: VideoMode, palette: Palette,
-                 backend: str = "auto"):
+                 n_rows: Optional[int] = None):
     """Build edit-distance LUTs for all lanes of a video mode.
 
     Returns (n_lanes, 2^(2*MASKED_BITS)) uint16 on the default JAX device:
     the full symmetric matrix, indexed by (src << MASKED_BITS) + tgt.
+    n_rows limits each lane to its first n_rows source values (tests and
+    dry runs), as in parallel.mesh.build_tables_sharded.
     """
-    import jax
     import jax.numpy as jnp
 
-    if backend == "auto":
-        # Measured on v5e (warm jits, whole lane per timing): the blocked
-        # XLA path runs a full 8192^2 DHGR lane in ~0.13s; the Pallas
-        # kernel - whose per-tile work is dominated by K=16 one-hot
-        # matmuls that Mosaic pads to the 128-lane MXU - takes ~14s/lane,
-        # and its faster base+savings variant does not get through Mosaic
-        # in reasonable compile time.  XLA wins this op shape outright;
-        # the Pallas kernel remains as a bit-identical tested reference.
-        backend = "xla"
     spec = screen.spec_for_mode(mode)
-    mats = []
-    for lane in range(spec.N_LANES):
-        if backend == "pallas":
-            m = edit_distance_matrix_pallas(mode, palette, lane)
-        else:
-            m = edit_distance_matrix_xla(mode, palette, lane)
-        mats.append(m.reshape(-1))
-    return jnp.stack(mats)
+    return jnp.stack([
+        edit_distance_matrix_xla(mode, palette, lane, n_rows=n_rows)
+        .reshape(-1) for lane in range(spec.N_LANES)])
 
 
 def table_path(mode: VideoMode, palette: Palette,

@@ -1,4 +1,4 @@
-"""Batched separable Lanczos-3 resize (MXU matmuls on device, banded on host).
+"""Batched separable Lanczos-3 resize (matmuls on device, banded on host).
 
 Replaces the per-frame PIL ``Image.resize(..., LANCZOS)`` host call
 (reference transcoder/frame_grabber.py:75,100).  The filter is separable,
@@ -9,7 +9,7 @@ clamping, per-row weight normalization).
 
 Two execution paths:
 - device: two dense matmuls (jnp.einsum) built from the taps below -
-  batches over frames and channels straight onto the MXU;
+  batches over frames and channels as two large matmuls;
 - host: PIL itself (SIMD fixed-point C, ~1ms/frame - measured 10-30x
   faster than any numpy formulation of the banded filter, and bit-exact
   with the reference's own resize since the reference calls PIL too).
@@ -161,9 +161,9 @@ def resize_batch(frames, h_out: int, w_out: int):
     ah = jnp.asarray(resize_matrix(h_in, h_out))
     aw = jnp.asarray(resize_matrix(w_in, w_out))
     x = frames.astype(jnp.float32)
-    # HIGHEST precision: the filter weights are non-integer, so the TPU's
-    # default single-pass bf16 matmul drifts pixels by up to a uint8 level
-    # vs the CPU/PIL path (CLAUDE.md precision rule)
+    # HIGHEST precision: the filter weights are non-integer, so a
+    # default-precision (TF32/bf16) matmul drifts pixels by up to a uint8
+    # level vs the CPU/PIL path (tests/test_precision.py)
     hp = jax.lax.Precision.HIGHEST
     y = jnp.einsum("oh,...hwc->...owc", ah, x, precision=hp)
     y = jnp.einsum("pw,...owc->...opc", aw, y, precision=hp)

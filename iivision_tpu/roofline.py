@@ -17,12 +17,13 @@ split).  The model mirrors encoder._build_encode_scan term by term:
   not observable from here, so HBM totals come in a [min, max] band:
   min = slab touched only at recomputes, max = slab copied every body.
 
-Peak numbers are per-chip datasheet values; unknown device kinds fall
-back to TPU v5e (the bench target).  All counts are per the BATCH (B
-movies vmapped over one scan).
+Peak numbers come from one table keyed by ``device_kind``; a device that is
+not in it is an error.  All counts are per the BATCH (B movies vmapped over
+one scan).
 """
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 
@@ -30,30 +31,27 @@ from iivision_tpu import screen
 from iivision_tpu.ops import distance
 from iivision_tpu.video_mode import VideoMode
 
-# (bf16 matmul TFLOP/s, HBM GB/s) per device_kind substring, datasheet
-# values.  f32-HIGHEST matmuls run as multi-pass bf16 (6 passes) - the
-# MFU reported here is vs the bf16 peak, i.e. the ceiling XLA could
-# reach if the math were bf16 and MXU-shaped.
-_PEAKS = (
-    ("v5 lite", 197.0, 819.0),  # v5e
-    ("v5e", 197.0, 819.0),
-    ("v5p", 459.0, 2765.0),
-    ("v4", 275.0, 1228.0),
-    ("v6 lite", 918.0, 1640.0),  # v6e / Trillium
-    ("v6e", 918.0, 1640.0),
-)
-_DEFAULT_PEAK = (197.0, 819.0)  # assume v5e
+
+class Peaks(NamedTuple):
+    bf16_tflops: float  # dense tensor-core bf16
+    f32_tflops: float  # float32 outside the tensor cores (HIGHEST dots)
+    hbm_gbps: float
 
 
-def device_peaks(device=None):
-    """(peak_tflops_bf16, peak_hbm_gbps) for a jax device (default: v5e)."""
-    kind = ""
-    if device is not None:
-        kind = str(getattr(device, "device_kind", "")).lower()
-    for sub, tf, bw in _PEAKS:
-        if sub in kind:
-            return tf, bw
-    return _DEFAULT_PEAK
+# NVIDIA H100 SXM data sheet (dense, no sparsity), at the full 700 W power
+# limit; a card set below it cannot hold these clocks under load.
+_PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(989.0, 67.0, 3350.0),
+}
+
+
+def device_peaks(device) -> Peaks:
+    """Published peaks for a jax device, looked up by its device_kind."""
+    kind = getattr(device, "device_kind", None)
+    if kind not in _PEAKS:
+        raise ValueError("no published peaks for device kind %r (known: %s)"
+                         % (kind, sorted(_PEAKS)))
+    return _PEAKS[kind]
 
 
 @dataclass
@@ -141,14 +139,15 @@ def encode_cost(plan, mode: VideoMode, batch: int = 1) -> EncodeCost:
 
 
 def report(plan, mode: VideoMode, batch: int, seconds: float,
-           device=None) -> dict:
+           device) -> dict:
     """One roofline record for a measured encode of `seconds` wall.
 
     Returns a dict (ready for the bench JSON line) and a human-readable
     summary under key "line".
     """
     cost = encode_cost(plan, mode, batch)
-    peak_tf, peak_bw = device_peaks(device)
+    peaks = device_peaks(device)
+    peak_tf, peak_bw = peaks.bf16_tflops, peaks.hbm_gbps
     tflops = cost.flops / seconds / 1e12
     gbps_min = cost.hbm_bytes_min / seconds / 1e9
     gbps_max = cost.hbm_bytes_max / seconds / 1e9
@@ -158,7 +157,7 @@ def report(plan, mode: VideoMode, batch: int, seconds: float,
     # resource is near saturation
     us_per_subop = seconds / max(cost.n_subops, 1) * 1e6
     if mfu > 0.5:
-        bound = "mxu"
+        bound = "compute"
     elif hbm_frac > 0.5:
         bound = "hbm"
     else:
@@ -172,7 +171,8 @@ def report(plan, mode: VideoMode, batch: int, seconds: float,
         "hbm_gbps": [round(gbps_min, 1), round(gbps_max, 1)],
         "hbm_pct_of_peak": round(100 * hbm_frac, 1),
         "bound": bound,
-        "peak": {"tflops_bf16": peak_tf, "hbm_gbps": peak_bw},
+        "peak": {"device_kind": device.device_kind,
+                 "tflops_bf16": peak_tf, "hbm_gbps": peak_bw},
     }
     rec["line"] = (
         "roofline[B=%d %s k=%d j=%d]: %.2fs -> %.2f TFLOP/s (%.2f%% MFU), "

@@ -2,8 +2,8 @@
 
 Redesign rationale (vs reference transcoder/screen.py:128-341): the reference
 packs pairs/quads of screen bytes into stateful uint64 scalars with 3-bit
-header/footer halos that must be imperatively patched on every store.  TPUs
-have no native uint64 and XLA wants functional state, so here screen state is
+header/footer halos that must be imperatively patched on every store.  XLA
+wants functional state and 32-bit integer vector ops, so here screen state is
 just the raw byte arrays (main: (32,256) u8, aux: (32,256) u8) and the packed
 "masked lanes" - the 13-bit (DHGR) / 14-bit (HGR) windows whose pixels a byte
 store influences - are *derived* from the byte arrays by pure int32 bit

@@ -73,7 +73,7 @@ def segment_schedule(total_ticks: int):
 
     Returns a list of (n_ops, aux_bank_after_flip_DHGR) pairs - segment s has
     291 ops if s == 0 else 292, and in DHGR mode targets bank MAIN for even s,
-    AUX for odd s.  Derived from the framing invariants above; used by the TPU
+    AUX for odd s.  Derived from the framing invariants above; used by the
     encoder to pre-plan a whole movie as one XLA program.
     """
     segs = []

@@ -110,21 +110,3 @@ def test_save_load_roundtrip(tmp_path, sub):
     assert np.all(loaded.reshape(4, n, n)[:, :16, :16] == small)
     assert loaded.reshape(4, n, n)[:, 16:, :].max() == 0
 
-
-def test_pallas_kernel_matches_xla_tile(sub):
-    """The fused Pallas DP kernel (interpret mode on CPU) is bit-identical
-    to the XLA tile path on a real code subset, for both modes."""
-    import jax.numpy as jnp
-
-    sub_f = jnp.asarray(sub.astype(np.float32))
-    for mode, n, tm, tn in [(VideoMode.DHGR, 256, 128, 128),
-                            (VideoMode.HGR, 128, 64, 128)]:
-        codes = editdist.lane_pixel_codes(mode, 0).astype(np.int32)
-        rows = jnp.asarray(codes[:n])
-        cols = jnp.asarray(codes[512:512 + n])
-        ref = np.asarray(editdist.dp_distance_tile(rows, cols, sub_f))
-        got = np.asarray(editdist.pallas_distance(
-            rows, cols, sub_f, tile_m=tm, tile_n=tn, interpret=True))
-        assert got.dtype == np.uint16
-        assert np.array_equal(got.astype(np.int64), ref.astype(np.int64)), \
-            mode

@@ -1,4 +1,4 @@
-"""Encoder tests: movie planning, and differential host-oracle vs TPU-scan
+"""Encoder tests: movie planning, and differential host-oracle vs device-scan
 equivalence using the real distance model."""
 
 import functools
@@ -114,17 +114,17 @@ def test_host_vs_scan_differential(mode, k, j):
     lanes_tgt, bytes_tgt = encoder.prepare_targets(fmain, faux, mode)
     ops_dev, fin_main, fin_aux = encoder.encode_movie(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None)
-    tpu_ops = encoder.flatten_ops(np.asarray(ops_dev), plan)
+    dev_ops = encoder.flatten_ops(np.asarray(ops_dev), plan)
 
     host_ops = encoder_host.encode_movie_host(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None)
 
-    assert tpu_ops.shape == host_ops.shape == (plan.n_ops, 6)
-    mismatch = np.nonzero((tpu_ops != host_ops).any(axis=1))[0]
+    assert dev_ops.shape == host_ops.shape == (plan.n_ops, 6)
+    mismatch = np.nonzero((dev_ops != host_ops).any(axis=1))[0]
     assert mismatch.size == 0, (
-        "first mismatch at op %d: tpu=%s host=%s" % (
+        "first mismatch at op %d: device=%s host=%s" % (
             mismatch[0] if mismatch.size else -1,
-            tpu_ops[mismatch[:3]], host_ops[mismatch[:3]]))
+            dev_ops[mismatch[:3]], host_ops[mismatch[:3]]))
 
     # final screen state matches the host too
     henc = encoder_host.HostEncoder(mode, dist, k=k, seed=None, j=j)
@@ -336,19 +336,19 @@ def test_joint_content_host_vs_scan_differential(mode, k, j):
     lanes_tgt, bytes_tgt = encoder.prepare_targets(fmain, faux, mode)
     ops_dev, fin_main, fin_aux = encoder.encode_movie(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None, joint=True)
-    tpu_ops = encoder.flatten_ops(np.asarray(ops_dev), plan)
+    dev_ops = encoder.flatten_ops(np.asarray(ops_dev), plan)
 
     host_ops = encoder_host.encode_movie_host(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None, joint=True)
 
-    mismatch = np.nonzero((tpu_ops != host_ops).any(axis=1))[0]
+    mismatch = np.nonzero((dev_ops != host_ops).any(axis=1))[0]
     assert mismatch.size == 0, (
-        "first mismatch at op %d: tpu=%s host=%s" % (
+        "first mismatch at op %d: device=%s host=%s" % (
             mismatch[0] if mismatch.size else -1,
-            tpu_ops[mismatch[:3]], host_ops[mismatch[:3]]))
+            dev_ops[mismatch[:3]], host_ops[mismatch[:3]]))
 
     # joint must actually diverge from the default rule somewhere (it is
     # allowed to emit non-target content bytes)
     dflt = encoder_host.encode_movie_host(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None, joint=False)
-    assert (tpu_ops != dflt).any()
+    assert (dev_ops != dflt).any()

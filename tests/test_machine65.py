@@ -251,7 +251,7 @@ def test_player_cycle_accounting():
 
 
 def test_movie_end_to_end_on_machine(tmp_path):
-    """Full pipeline: TPU encoder -> .a2m -> real player executing on the
+    """Full pipeline: device encoder -> .a2m -> real player executing on the
     simulated Apple IIe -> screen memory equals the encoder's model."""
     from iivision_tpu import audio as audio_mod
     from iivision_tpu.movie import Movie

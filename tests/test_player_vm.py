@@ -106,7 +106,7 @@ def test_decode_rejects_corruption(vm):
 
 
 def test_encoder_to_vm_end_to_end(vm):
-    """Full pipeline: TPU-encoder ops -> framed stream -> player VM; the VM's
+    """Full pipeline: device-encoder ops -> framed stream -> player VM; the VM's
     final screen memory must equal the encoder's own model."""
     from tests.test_encoder import get_dist
 

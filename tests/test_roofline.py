@@ -1,6 +1,7 @@
 """Sanity checks for the encode-scan FLOP/HBM cost model (roofline.py)."""
 
 import numpy as np
+import pytest
 
 from iivision_tpu import encoder, roofline
 from iivision_tpu.video_mode import VideoMode
@@ -45,29 +46,40 @@ def test_cost_model_basics():
         assert abs(c.flops - 8 * c1.flops) < 1e-6 * c.flops
 
 
+class _H100:
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+
 def test_report_line_and_fields():
     plan = _plan(VideoMode.DHGR)
     rec = roofline.report(_padded(plan), VideoMode.DHGR, batch=32,
-                          seconds=1.0)
+                          seconds=1.0, device=_H100())
     for key in ("model_tflop", "achieved_tflops", "mfu_pct", "hbm_gbps",
                 "bound", "line", "recompute_tflop"):
         assert key in rec, key
     assert 0 < rec["mfu_pct"] < 100
     assert rec["hbm_gbps"][0] <= rec["hbm_gbps"][1]
     assert "roofline[B=32 DHGR" in rec["line"]
+    assert rec["peak"]["device_kind"] == _H100.device_kind
     # far from both peaks at these shapes -> latency-bound classification
     assert rec["bound"].startswith("latency")
 
 
 def test_device_peaks_fallback():
-    assert roofline.device_peaks(None) == (197.0, 819.0)
-
-    class FakeDev:
-        device_kind = "TPU v4"
-
-    assert roofline.device_peaks(FakeDev()) == (275.0, 1228.0)
-
+    """There is no fallback: a device missing from the table is an error,
+    and so is no device at all."""
     class Unknown:
-        device_kind = "weird accelerator"
+        device_kind = "unlisted accelerator"
 
-    assert roofline.device_peaks(Unknown()) == (197.0, 819.0)
+    for dev in (None, Unknown()):
+        with pytest.raises(ValueError, match="no published peaks"):
+            roofline.device_peaks(dev)
+    with pytest.raises(ValueError):
+        roofline.report(_padded(_plan(VideoMode.DHGR)), VideoMode.DHGR,
+                        batch=1, seconds=1.0, device=Unknown())
+
+
+def test_device_peaks_h100_by_device_kind():
+    peaks = roofline.device_peaks(_H100())
+    assert peaks == (989.0, 67.0, 3350.0)
+    assert (peaks.bf16_tflops, peaks.f32_tflops, peaks.hbm_gbps) == peaks

@@ -143,8 +143,8 @@ def test_segment_schedule():
 def test_golden_stream_hash():
     """End-to-end ABI lock: a pinned movie encoded with seed=None emits a
     byte stream whose hash is frozen - across backends too (the encoder's
-    value-carrying matmuls run at HIGHEST precision; this exact hash was
-    verified bit-identical on CPU and real TPU)."""
+    value-carrying matmuls run at HIGHEST precision; chip_smoke.py and
+    tests/test_gpu.py check the same hash on a GPU)."""
     import hashlib
 
     import numpy as np

@@ -1,5 +1,5 @@
 """NTSC-composite (YIQ) colour model tests: calibration quality, LUT
-invariants, and full host-vs-TPU-scan differential under the new basis."""
+invariants, and full host-vs-device-scan differential under the new basis."""
 
 import functools
 
@@ -89,10 +89,10 @@ def test_host_vs_scan_differential_yiq(mode):
     lanes_tgt, bytes_tgt = encoder.prepare_targets(fmain, faux, mode)
     ops_dev, fin_main, fin_aux = encoder.encode_movie(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None)
-    tpu_ops = encoder.flatten_ops(np.asarray(ops_dev), plan)
+    dev_ops = encoder.flatten_ops(np.asarray(ops_dev), plan)
     host_ops = encoder_host.encode_movie_host(
         dist, lanes_tgt, bytes_tgt, plan, mode, seed=None)
-    assert np.array_equal(tpu_ops, host_ops)
+    assert np.array_equal(dev_ops, host_ops)
 
 
 def test_yiq_stream_valid_and_converges():
